@@ -19,23 +19,18 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-CACHE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     ".cache", "xla")
 
 
 def main():
     preset = sys.argv[1] if len(sys.argv) > 1 else "mid"
-    os.makedirs(CACHE, exist_ok=True)
     import jax
-    jax.config.update("jax_compilation_cache_dir", CACHE)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
     import numpy as np
 
-    from matrix_fhe_tpu.config import get_params
-    from matrix_fhe_tpu.models.leveled import LeveledChain
-    from matrix_fhe_tpu.models.keyswitch import w_automorphism_perm
-    from matrix_fhe_tpu.ops import modmath as mm
+    from matrix_fhe.config import get_params
+    from matrix_fhe.models.leveled import LeveledChain
+    from matrix_fhe.models.keyswitch import w_automorphism_perm
+    from matrix_fhe.ops import modmath as mm
 
     p = get_params(preset)
     t0 = time.time()
@@ -81,7 +76,7 @@ def main():
     perm = w_automorphism_perm(chain.params_at(1), j)
     want = want[:, jnp.asarray(perm)]
     diff = mm.sub_mod(got, want, c1._c4["q"])
-    from matrix_fhe_tpu.utils.debug import composed_magnitude
+    from matrix_fhe.utils.debug import composed_magnitude
     mag = composed_magnitude(c1, diff)  # exact bigint noise meter
     ok = mag < 1 << 40
     print(f"[leveled] |ct - oracle| composed max = {mag} "

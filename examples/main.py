@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Full-pipeline demo driver: the TPU equivalent of the reference's
+"""Full-pipeline demo driver: the JAX equivalent of the reference's
 `matrix_fhe_gpu` binary (src/main.cu:31-157).
 
 Same flow, same deterministic input pattern (msg[ell][i] = ell + i*1e-5
@@ -23,8 +23,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from matrix_fhe_tpu import init_he_backend
-    from matrix_fhe_tpu.config import get_params
+    from matrix_fhe import init_he_backend
+    from matrix_fhe.config import get_params
 
     p = get_params(preset)
     print(f">>> Initializing backend ({preset}: n={p.n}, phi={p.phi}, "

@@ -6,7 +6,7 @@ homomorphic trace-GEMM tensor op (the capability the reference exports but
 never exercises, trace.cuh/batched_trace.cuh), decrypts with the two-sided
 key action, and checks  C == Y^H @ X  per lane.
 
-Run on the TPU chip:  python examples/matmul.py  [preset]
+Run:  python examples/matmul.py  [preset]
 """
 
 import os
@@ -14,22 +14,17 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-CACHE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     ".cache", "xla")
 
 
 def main():
     preset = sys.argv[1] if len(sys.argv) > 1 else "ref"
-    os.makedirs(CACHE, exist_ok=True)
     import jax
-    jax.config.update("jax_compilation_cache_dir", CACHE)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
     import numpy as np
 
-    from matrix_fhe_tpu.config import get_params
-    from matrix_fhe_tpu.models.he import HEContext
-    from matrix_fhe_tpu.models.he_matmul import HEMatmul
+    from matrix_fhe.config import get_params
+    from matrix_fhe.models.he import HEContext
+    from matrix_fhe.models.he_matmul import HEMatmul
 
     p = get_params(preset)
     print(f"[matmul] preset={preset}: n={p.n}, phi={p.phi}, L={len(p.moduli)}")
@@ -56,11 +51,11 @@ def main():
 
     t0 = time.time()
     tt = hm.matmul(ctA, ctB)
-    _ = jax.device_get(tt.e0_re[0, 0, :1, :1])
+    jax.block_until_ready(tt.e0_re)
     t_gemm = time.time() - t0
     t0 = time.time()
     dr, di = hm.decrypt_and_decode(tt, sk)
-    _ = jax.device_get(dr[0, :1, :1])
+    jax.block_until_ready(dr)
     t_dec = time.time() - t0
 
     C = np.asarray(dr) + 1j * np.asarray(di)

@@ -18,7 +18,7 @@ Run:  python examples/matmul_gl2.py [preset]      (default "mid")
 4-limb chain.  Memory at full "ref" (Lqp=14, dnum=4): the two switch-key
 families alone are dnum*2 * [14, 512, 128, 128] u64 ~ 7.5 GB — use the
 streamed/sharded key-switch paths (examples/relinearize.py) for that
-chain; "mid" fits one chip comfortably.
+chain; "mid" fits one device comfortably.
 """
 
 import os
@@ -26,22 +26,17 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-CACHE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     ".cache", "xla")
 
 
 def main():
     preset = sys.argv[1] if len(sys.argv) > 1 else "mid"
-    os.makedirs(CACHE, exist_ok=True)
     import jax
-    jax.config.update("jax_compilation_cache_dir", CACHE)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
     import numpy as np
 
-    from matrix_fhe_tpu.config import get_params
-    from matrix_fhe_tpu.models.he2 import Gl2Context
-    from matrix_fhe_tpu.models.he_matmul2 import Gl2GemmRelin, HEMatmul2
+    from matrix_fhe.config import get_params
+    from matrix_fhe.models.he2 import Gl2Context
+    from matrix_fhe.models.he_matmul2 import Gl2GemmRelin, HEMatmul2
 
     p = get_params(preset)
     print(f"[gl2-gemm] preset={preset}: n={p.n} (m={2*p.n}), phi={p.phi}, "
@@ -52,9 +47,9 @@ def main():
     # MFHE_AUTO_P=1: grid-aware generated P basis (dnum=1) instead of a
     # preset-pinned one — REQUIRED at "ref" scale: the pinned parity P
     # gives dnum=4 and ~27 GB of [m, m]-grid switch keys (4x HBM); the
-    # auto basis fits one chip (~6.7 GB keys at Lqp=25)
+    # auto basis fits one device (~6.7 GB keys at Lqp=25)
     if os.environ.get("MFHE_AUTO_P") == "1":
-        from matrix_fhe_tpu.models.keyswitch import RelinContext
+        from matrix_fhe.models.keyswitch import RelinContext
         gr = Gl2GemmRelin(hm, RelinContext(ctx, p_moduli="auto"))
     else:
         gr = Gl2GemmRelin(hm)
@@ -81,13 +76,13 @@ def main():
     # GEMM -> relinearize -> standard ciphertext (first call compiles)
     t0 = time.time()
     ct_out = gr.matmul(ctX, ctY, ks)
-    _ = jax.device_get(ct_out.b.ravel()[:1])
+    jax.block_until_ready(ct_out.b)
     print(f"[gl2-gemm] gemm+relin first(+compile) {time.time()-t0:.1f}s")
     iters = 3
     t0 = time.perf_counter()
     for _ in range(iters):
         ct_out = gr.matmul(ctX, ctY, ks)
-    _ = jax.device_get(ct_out.b.ravel()[:1])
+    jax.block_until_ready(ct_out.b)
     dt = (time.perf_counter() - t0) / iters
     print(f"[gl2-gemm] gemm+relin steady {dt*1e3:.1f} ms "
           f"({W} lanes of {n}x{n} complex GEMM)")

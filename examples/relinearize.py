@@ -9,17 +9,15 @@ the plaintexts (+ key-switch noise, reported).
 
 Run:  python examples/relinearize.py [preset]     (default "mid")
 
-"mid" = the reference geometry (n=64, phi=512) with a 4-limb chain;
-measured on one v5e: steady-state multiply+relinearize 117.6 ms,
-relinearization noise max 449 = 1.3e-8 * Delta.
+"mid" = the reference geometry (n=64, phi=512) with a 4-limb chain.
 
 The full 11-limb "ref" chain (dnum=4, ~1.9 GB of relin keys) runs via the
 STREAMED key switch (RelinContext.multiply_relinearize_streamed): one jit
 step per digit with donated accumulators caps peak HBM at keys + ONE
 [14, 512, 64, 64] digit transient (~235 MB) instead of all four, fitting a
-single 16 GB chip.  Memory model at ref: ct pair 0.74 GB + keys 1.88 GB +
+16 GB device.  Memory model at ref: ct pair 0.74 GB + keys 1.88 GB +
 tensor/accumulators ~1.0 GB + digit transient ~0.7 GB ~= 4.4 GB peak.
-Multi-chip: the same op is bit-exact under W-lane or RNS-limb sharding
+Multi-device: the same op is bit-exact under W-lane or RNS-limb sharding
 (tests/test_keyswitch.py::test_multidigit_chain_sharded_and_streamed);
 limb sharding also distributes the key storage.
 """
@@ -29,24 +27,19 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-CACHE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     ".cache", "xla")
 
 
 def main():
     preset = sys.argv[1] if len(sys.argv) > 1 else "mid"
-    os.makedirs(CACHE, exist_ok=True)
     import jax
-    jax.config.update("jax_compilation_cache_dir", CACHE)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
     import numpy as np
 
-    from matrix_fhe_tpu.config import get_params
-    from matrix_fhe_tpu.models.he import HEContext
-    from matrix_fhe_tpu.models.keyswitch import RelinContext
-    from matrix_fhe_tpu.models import rng as refrng
-    from matrix_fhe_tpu.ops import modmath as mm
+    from matrix_fhe.config import get_params
+    from matrix_fhe.models.he import HEContext
+    from matrix_fhe.models.keyswitch import RelinContext
+    from matrix_fhe.models import rng as refrng
+    from matrix_fhe.ops import modmath as mm
 
     p = get_params(preset)
     print(f"[relin] preset={preset}: n={p.n}, phi={p.phi}, L={len(p.moduli)}, "
@@ -55,7 +48,7 @@ def main():
     ctx = HEContext(p, ring="nega")
     # MFHE_AUTO_P=1: grid-aware generated P basis instead of the
     # reference's parity-pinned reserved primes — at ref: 14 x 28-bit
-    # P, dnum=1, keys 1.88 -> 0.84 GB (docs/PERF.md round 3)
+    # P, dnum=1, keys 1.88 -> 0.84 GB
     auto_p = os.environ.get("MFHE_AUTO_P") == "1"
     rc = RelinContext(ctx, p_moduli="auto" if auto_p else None)
     sk = ctx.generate_secret_key()
@@ -86,13 +79,13 @@ def main():
     print(f"[relin] path = {'streamed' if streamed else 'fused'}")
     t0 = time.time()
     ct = mul(ct1, ct2, rlk)
-    _ = jax.device_get(ct.b.ravel()[:1])
+    jax.block_until_ready(ct.b)
     print(f"[relin] multiply+relinearize {time.time()-t0:.1f}s "
           f"(first call incl. compile)")
     t0 = time.perf_counter()
     for _ in range(3):
         ct = mul(ct1, ct2, rlk)
-    _ = jax.device_get(ct.b.ravel()[:1])
+    jax.block_until_ready(ct.b)
     print(f"[relin] steady-state multiply+relinearize "
           f"{(time.perf_counter()-t0-0.03)/3*1e3:.1f} ms")
 

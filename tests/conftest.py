@@ -1,8 +1,8 @@
 """Test harness: run everything on a virtual 8-device CPU mesh.
 
-Multi-chip sharding is validated on xla_force_host_platform_device_count=8
-CPU devices (real TPU pods are exercised by the bench/driver instead).
-Environment must be set before jax is imported anywhere.
+Multi-device sharding is validated on xla_force_host_platform_device_count=8
+CPU devices; `python chip_smoke.py [--chips 4]` runs the same paths on the
+GPU.  Environment must be set before jax is imported anywhere.
 """
 
 import os

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from matrix_fhe_tpu.config import get_params
-from matrix_fhe_tpu.tables import build_tables
-from matrix_fhe_tpu.ops.crt import CRTComposer, centered_i64_to_rns
+from matrix_fhe.config import get_params
+from matrix_fhe.tables import build_tables
+from matrix_fhe.ops.crt import CRTComposer, centered_i64_to_rns
 
 
 @pytest.fixture(scope="module", params=["tiny", "ref"])

@@ -1,14 +1,13 @@
 """Fast-float (split-f32 / float-exact) paths vs the exact f64/bigint
-oracles.  These run everywhere; on TPU the fast paths are the production
-pipeline (MFHE_FAST_FLOAT), on CPU they default off but must still agree."""
+oracles."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from matrix_fhe_tpu.config import get_params
-from matrix_fhe_tpu.models.batched_encoder import BatchedEncoder
-from matrix_fhe_tpu.ops import ddfloat as dd
+from matrix_fhe.config import get_params
+from matrix_fhe.models.batched_encoder import BatchedEncoder
+from matrix_fhe.ops import ddfloat as dd
 
 
 def test_dd_matmul_accuracy(rng):
@@ -58,7 +57,6 @@ def test_fast_encode_decode_loopback(rng):
     be = BatchedEncoder(p)
     be_fast = BatchedEncoder(p)
     be_fast.encoder.fast_float = True
-    be_fast.wt._fast_float = True
     be_fast.wt._inv_scaled  # materialize outside traces
     re = rng.uniform(-4, 4, size=(p.phi, p.n, p.n))
     im = rng.uniform(-4, 4, size=(p.phi, p.n, p.n))
@@ -72,86 +70,3 @@ def test_fast_encode_decode_loopback(rng):
     dr2, di2 = be.decode_from_wntt_eval(pr, pi)
     err2 = np.hypot(np.asarray(dr2) - re, np.asarray(di2) - im).max()
     assert err2 < 5e-3, err2
-
-
-def test_exact_fp_cmatmul(rng):
-    """Fixed-point MXU complex matmul vs complex128, across value scales."""
-    from matrix_fhe_tpu.ops.fpmatmul import ExactComplexMatmul
-
-    for (W, K, M, scale) in ((32, 32, 64, 1.0), (32, 32, 64, 511.0),
-                             (64, 64, 128, 2e-4)):
-        theta = rng.uniform(0, 2 * np.pi, size=(W, K))
-        T = np.exp(1j * theta)
-        xr = rng.uniform(-scale, scale, size=(K, M))
-        xi = rng.uniform(-scale, scale, size=(K, M))
-        mm = ExactComplexMatmul(T, m_tile=64)
-        yr, yi = mm(jnp.asarray(xr), jnp.asarray(xi))
-        want = T @ (xr + 1j * xi)
-        err = max(np.abs(np.asarray(yr) - want.real).max(),
-                  np.abs(np.asarray(yi) - want.imag).max())
-        rel = err / np.abs(want).max()
-        assert rel < 1e-8, (W, scale, rel)
-
-
-def test_exact_fp_small_norm_table(rng):
-    """Per-table scaling must keep precision for small-norm tables."""
-    from matrix_fhe_tpu.ops.fpmatmul import ExactComplexMatmul
-
-    T = np.exp(1j * rng.uniform(0, 2 * np.pi, size=(32, 32))) / 64.0
-    xr = rng.uniform(-500, 500, size=(32, 64))
-    xi = rng.uniform(-500, 500, size=(32, 64))
-    mm = ExactComplexMatmul(T, m_tile=64)
-    yr, yi = mm(jnp.asarray(xr), jnp.asarray(xi))
-    want = T @ (xr + 1j * xi)
-    rel = max(np.abs(np.asarray(yr) - want.real).max(),
-              np.abs(np.asarray(yi) - want.imag).max()) / np.abs(want).max()
-    assert rel < 1e-8, rel
-
-
-def test_exact_fp_edge_inputs(rng):
-    """Zeros, negatives-only, and power-of-two-max inputs (dynamic scale
-    edge) through the fixed-point complex matmul."""
-    from matrix_fhe_tpu.ops.fpmatmul import ExactComplexMatmul
-
-    T = np.exp(1j * rng.uniform(0, 2 * np.pi, size=(32, 32)))
-    mm = ExactComplexMatmul(T, m_tile=64)
-    cases = [
-        (np.zeros((32, 64)), np.zeros((32, 64))),
-        (-np.abs(rng.uniform(0.5, 2.0, size=(32, 64))), -np.ones((32, 64))),
-        (np.full((32, 64), 256.0), np.full((32, 64), -256.0)),  # exact 2^k max
-    ]
-    for xr, xi in cases:
-        yr, yi = mm(jnp.asarray(xr), jnp.asarray(xi))
-        want = T @ (xr + 1j * xi)
-        err = max(np.abs(np.asarray(yr) - want.real).max(),
-                  np.abs(np.asarray(yi) - want.imag).max())
-        assert err < 1e-7 * max(1.0, np.abs(want).max()), err
-
-
-def test_fp_matmul_5digit_mode(monkeypatch):
-    """MFHE_FP_XBITS=31 (5 balanced data digits, a 17% MXU cut on the fp
-    transforms): the kernel machinery stays exact — only the input
-    quantization coarsens (2^-31-relative instead of 2^-38)."""
-    import numpy as np
-    import jax.numpy as jnp
-    import matrix_fhe_tpu.ops.fpmatmul as fp
-
-    monkeypatch.setattr(fp, "X_BITS", 31)
-    monkeypatch.setattr(fp, "DATA_CHUNKS", 5)
-    rng = np.random.default_rng(3)
-    W = K = 32
-    M = 64
-    T = rng.standard_normal((W, K)) + 1j * rng.standard_normal((W, K))
-    X = 500 * (rng.standard_normal((K, M)) + 1j * rng.standard_normal((K, M)))
-    mm = fp.ExactComplexMatmul(T)
-    yr, yi = mm(jnp.asarray(X.real), jnp.asarray(X.imag))
-    ref = T @ X
-    err = np.hypot(np.asarray(yr) - ref.real, np.asarray(yi) - ref.imag).max()
-    assert err / np.abs(ref).max() < 1e-8
-    # words-chained link also renormalizes to the narrower budget exactly
-    wr, wi, e = mm.call_words(jnp.asarray(X.real), jnp.asarray(X.imag))
-    w2r, _, e2 = mm.call_words_w(wr, wi, e)
-    y2 = fp.ExactComplexMatmul.words_to_f64(w2r, e2)
-    ref2 = T @ ref
-    assert (np.abs(np.asarray(y2) - ref2.real).max()
-            / np.abs(ref2).max()) < 1e-8

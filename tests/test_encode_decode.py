@@ -7,9 +7,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from matrix_fhe_tpu.config import get_params
-from matrix_fhe_tpu.models.batched_encoder import BatchedEncoder
-from matrix_fhe_tpu.models.encoder import Encoder
+from matrix_fhe.config import get_params
+from matrix_fhe.models.batched_encoder import BatchedEncoder
+from matrix_fhe.models.encoder import Encoder
 
 
 @pytest.fixture(scope="module", params=["tiny", "small"])
@@ -77,8 +77,8 @@ def test_zero_key_full_decrypt_fixture():
     message driven through the FULL decrypt_and_decode machinery must come
     back below the 1e-3 test threshold."""
     import jax.numpy as jnp
-    from matrix_fhe_tpu.config import get_params
-    from matrix_fhe_tpu.models.he import Ciphertext, HEContext, SecretKey
+    from matrix_fhe.config import get_params
+    from matrix_fhe.models.he import Ciphertext, HEContext, SecretKey
 
     p = get_params("tiny")
     ctx = HEContext(p)
@@ -97,94 +97,3 @@ def test_zero_key_full_decrypt_fixture():
     # the reference's 1e-3 bound assumes Delta = 2^35; tiny runs at
     # Delta = 2^12, whose quantization floor alone is ~6e-3
     assert err < 1e-2, err
-
-
-def test_integer_quantize_matches_f64_route(monkeypatch):
-    """encode_pair's integer-words quantize (fp kernel + dynamic
-    shift-round + Montgomery residues) == the f64 llround route within
-    the one-ulp the f64 reconstruction may lose (the integer path is the
-    MORE exact of the two): per-limb centered difference <= 1."""
-    monkeypatch.setenv("MFHE_FP_TRANSFORMS", "1")
-    import matrix_fhe_tpu.ops.modmath as mm
-    p = get_params("tiny")
-    be2 = BatchedEncoder(get_params("tiny"))
-    assert be2.wt._fp_idft is not None
-    re, im = _test_message(p, scale=0.37)
-    (rl, rh), (il, ih) = be2.encode_pair(jnp.asarray(re), jnp.asarray(im))
-
-    # the f64 route vs the words route, compared BEFORE the W-CRT forward
-    xr, xi = be2.encoder.idft2(jnp.asarray(re), jnp.asarray(im))
-    cr, ci = be2.wt.dft_inverse_pair(xr, xi)
-    words_r, words_i, e = be2.wt.dft_inverse_words(xr, xi)
-    (qrl, qrh), (qil, qih) = be2.encoder.quantize_words(words_r, words_i, e)
-    (grl, grh), (gil, gih) = be2.encoder.quantize_pair(cr, ci)
-    shp = (qrl.shape[0],) + xr.shape
-    for (al, ah), (bl, bh) in (((qrl, qrh), (grl, grh)),
-                               ((qil, qih), (gil, gih))):
-        a = np.asarray(mm.pair_join(al.reshape(shp), ah.reshape(shp)))
-        b = np.asarray(mm.pair_join(bl, bh))
-        for l, q in enumerate(p.moduli):
-            d = (a[l].astype(np.int64) - b[l].astype(np.int64)) % int(q)
-            d = np.minimum(d, int(q) - d)
-            assert d.max() <= 1, (l, d.max())
-
-    # and the full encode_pair output decodes within the contract
-    dr, di = be2.decode_pair((rl, rh), (il, ih))
-    tol = 1e-3 if p.delta >= 2**30 else 0.35
-    err = np.hypot(np.asarray(dr) - re, np.asarray(di) - im).max()
-    assert err < tol, err
-
-
-def test_words_chained_encode_decode_loopback(monkeypatch):
-    """Fully words-chained encode_pair -> decode_pair (fp kernels at every
-    transform, integer shift-round links, single trailing f64
-    reconstruction) stays inside the reference decode contract."""
-    monkeypatch.setenv("MFHE_FP_TRANSFORMS", "1")
-    p = get_params("tiny")
-    be2 = BatchedEncoder(get_params("tiny"))
-    re, im = _test_message(p, scale=0.9)
-    pair_r, pair_i = be2.encode_pair(jnp.asarray(re), jnp.asarray(im))
-    dr, di = be2.decode_pair(pair_r, pair_i)
-    tol = 1e-3 if p.delta >= 2**30 else 0.35
-    err = np.hypot(np.asarray(dr) - re, np.asarray(di) - im).max()
-    assert err < tol, err
-
-    # and against the f64-linked route on the same inputs
-    monkeypatch.setenv("MFHE_FP_TRANSFORMS", "0")
-    be3 = BatchedEncoder(get_params("tiny"))
-    pr3, pi3 = be3.encode_pair(jnp.asarray(re), jnp.asarray(im))
-    d3r, d3i = be3.decode_pair(pr3, pi3)
-    dd = np.hypot(np.asarray(dr) - np.asarray(d3r),
-                  np.asarray(di) - np.asarray(d3i)).max()
-    assert dd < tol, dd
-
-
-def test_quantize_words_contract_guard():
-    """ADVICE r3: a message beyond the encode contract (e_scale <=
-    delta_bits) must fail loudly host-side; under a trace it must ZERO the
-    residues (poisoned-but-unmistakable) instead of silently mis-scaling —
-    and the traced guard must stay jax.export-compatible, so it is
-    arithmetic, not a debug callback (see encoder.quantize_words)."""
-    import jax
-    import pytest
-
-    p = get_params("tiny")
-    enc = Encoder(p)
-    assert enc.delta_bits is not None
-    shp = (2, 8)
-    words = tuple(jnp.ones(shp, jnp.uint32) for _ in range(3)) + (
-        jnp.zeros(shp, jnp.uint32),)
-    bad_e = jnp.int32(enc.delta_bits)          # diff == 0: violation
-
-    with pytest.raises(ValueError, match="encode contract"):
-        enc.quantize_words(words, words, bad_e)
-
-    jit_q = jax.jit(enc.quantize_words)
-    (rl, rh), (il, ih) = jit_q(words, words, bad_e)
-    for a in (rl, rh, il, ih):
-        assert not np.asarray(a).any()         # poisoned to zero
-
-    # a compliant e_scale keeps real residues through the same jit
-    good_e = jnp.int32(enc.delta_bits + 8)
-    (rl, rh), _ = jit_q(words, words, good_e)
-    assert np.asarray(rl).any()

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from matrix_fhe_tpu.ops import gint
-from matrix_fhe_tpu.config import get_params
+from matrix_fhe.ops import gint
+from matrix_fhe.config import get_params
 
 
 def _mk(rng, moduli, shape):

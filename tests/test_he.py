@@ -7,9 +7,9 @@ def test_plaintext_ops_exact():
     import numpy as np
     import jax.numpy as jnp
 
-    from matrix_fhe_tpu.config import get_params
-    from matrix_fhe_tpu.models.he import HEContext
-    from matrix_fhe_tpu.ops import modmath as mm
+    from matrix_fhe.config import get_params
+    from matrix_fhe.models.he import HEContext
+    from matrix_fhe.ops import modmath as mm
 
     p = get_params("tiny")
     ctx = HEContext(p, ring="nega")

@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from matrix_fhe_tpu.config import get_params
-from matrix_fhe_tpu.models.he import Ciphertext, HEContext
-from matrix_fhe_tpu.models.he_matmul import HEMatmul, conj_flip_perm
-from matrix_fhe_tpu.models import trace as tr
+from matrix_fhe.config import get_params
+from matrix_fhe.models.he import Ciphertext, HEContext
+from matrix_fhe.models.he_matmul import HEMatmul, conj_flip_perm
+from matrix_fhe.models import trace as tr
 
 
 @pytest.fixture(scope="module")
@@ -99,7 +99,7 @@ def test_requires_gl_ring():
 
 def test_matmul_tensor_serialization(setup, tmp_path):
     p, ctx, hm, A, B, pA, pB = setup
-    from matrix_fhe_tpu.utils import serialization as ser
+    from matrix_fhe.utils import serialization as ser
 
     sk = ctx.generate_secret_key(key=jax.random.key(3))
     ctA = ctx.encrypt_pair(*pA, sk, key=jax.random.key(11))

@@ -19,17 +19,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from matrix_fhe_tpu.config import get_params
-from matrix_fhe_tpu.ops import modmath as mm
-from matrix_fhe_tpu.ops.ntt import XNTT
-from matrix_fhe_tpu.models.he2 import Ciphertext2, Gl2Context
-from matrix_fhe_tpu.models.he_matmul2 import Gl2GemmRelin, HEMatmul2
+from matrix_fhe.config import get_params
+from matrix_fhe.ops import modmath as mm
+from matrix_fhe.ops.ntt import XNTT
+from matrix_fhe.models.he2 import Ciphertext2, Gl2Context
+from matrix_fhe.models.he_matmul2 import Gl2GemmRelin, HEMatmul2
 
 
 @pytest.fixture(scope="module")
 def setup():
     p = get_params("tiny")
-    ctx = Gl2Context(p, use_pallas=False)
+    ctx = Gl2Context(p)
     hm = HEMatmul2(ctx)
     rng = np.random.default_rng(31)
     W, n = p.phi, p.n
@@ -48,7 +48,7 @@ def test_gl2_ntt_is_exact_double_negacyclic():
     """Roundtrip + schoolbook X^{2n}+1 polymul oracle (the gl2 analog of
     test_custom_ntt_roundtrip.cu:256-319)."""
     p = get_params("tiny")
-    xn = XNTT(p, ring="gl2", use_pallas=False)
+    xn = XNTT(p, ring="gl2")
     m = 2 * p.n
     rng = np.random.default_rng(0)
     a = np.stack([rng.integers(0, q, (3, m), dtype=np.uint64)
@@ -157,7 +157,7 @@ def test_gl2_x_slot_rotation_and_conjugation(setup):
     """X-axis Galois on gl2 packing: tau_5 rotates each matrix's columns
     (the X-slot 5-orbit); tau_{-1} + the W-lane flip is full homomorphic
     complex conjugation of every packed value."""
-    from matrix_fhe_tpu.models.keyswitch import RelinContext, XGaloisKeys
+    from matrix_fhe.models.keyswitch import RelinContext, XGaloisKeys
 
     p, ctx, hm, X, Y, C, mX, mY, sk, ctX, ctY = setup
     rc = RelinContext(ctx)
@@ -177,7 +177,7 @@ def test_gl2_x_slot_rotation_and_conjugation(setup):
     # full conjugation: the JOINT (W, Y, X)-inversion + one key switch
     # (per-axis compositions are not automorphisms of Y^n = X^n — see
     # Gl2Conj docstring)
-    from matrix_fhe_tpu.models.he_matmul2 import Gl2Conj
+    from matrix_fhe.models.he_matmul2 import Gl2Conj
     cj = Gl2Conj(hm, rc, sk, jax.random.key(34))
     ct_c = cj.apply(ctX)
     dr, di = ctx.decrypt_and_decode(ct_c, sk)
@@ -185,46 +185,31 @@ def test_gl2_x_slot_rotation_and_conjugation(setup):
     assert err < 0.5
 
 
-def test_sliced_gemm2x2_matches_xla_tensor(setup, monkeypatch):
-    """The fused Mosaic 2x2 GEMM tensor kernel (MFHE_GEMM2=sliced,
-    ops/pallas_cgemm.SlicedGemm2x2) == the XLA chunked-einsum oracle,
-    bit-exact on every component, including across mixed-width limb
-    runs."""
-    p, ctx, hm, X, Y, C, mX, mY, sk, ctX, ctY = setup
-    monkeypatch.setenv("MFHE_GEMM2", "xla")
-    want = hm.tensor_fn(ctX, ctY)
-    monkeypatch.setenv("MFHE_GEMM2", "sliced")
-    got = hm.tensor_fn(ctX, ctY)
-    for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_relinearize_streamed_matches_fused(setup, relin, monkeypatch):
+def test_relinearize_streamed_matches_fused(setup, relin):
     """The limb-chunked streamed relinearization (round 5: bounds peak HBM
-    for the ref-scale flagship, runbook 5c2) == the fused graph, bit-exact
+    for the ref-scale flagship) == the fused graph, bit-exact
     on both components, forced to 1-limb chunks to exercise the chunk
     transforms, the dst-sliced basis extension, and the accumulator
     writes."""
     p, ctx, hm, X, Y, C, _, _, sk, ctX, ctY = setup
     gr, ks = relin
-    monkeypatch.setenv("MFHE_GEMM2_CHUNK", "1")
+    gr1 = Gl2GemmRelin(hm, gr.rc, chunk_limbs=1)
     want = gr.relinearize_fn(hm.tensor_fn(ctX, ctY), ks)
     # streamed consumes its tensor (donated) — build a fresh one
-    got = gr.relinearize_streamed(hm.tensor_fn(ctX, ctY), ks)
+    got = gr1.relinearize_streamed(hm.tensor_fn(ctX, ctY), ks)
     np.testing.assert_array_equal(np.asarray(want.b), np.asarray(got.b))
     np.testing.assert_array_equal(np.asarray(want.a), np.asarray(got.a))
 
 
-def test_gen_keys_chunk_invariant(setup, monkeypatch):
+def test_gen_keys_chunk_invariant(setup):
     """Key material is independent of the limb chunking (per-limb
     fold_in streams): 1-limb chunks == one full chunk, bit-exact."""
     p, ctx, hm, *_ = setup
     sk = setup[8]
     gr = Gl2GemmRelin(hm)
-    monkeypatch.setenv("MFHE_GEMM2_CHUNK", str(len(gr.rc.qp_moduli)))
+    gr.chunk_limbs = len(gr.rc.qp_moduli)
     k_full = gr.gen_keys(sk, jax.random.key(9))
-    gr2 = Gl2GemmRelin(hm, gr.rc)
-    monkeypatch.setenv("MFHE_GEMM2_CHUNK", "1")
+    gr2 = Gl2GemmRelin(hm, gr.rc, chunk_limbs=1)
     k_chunk = gr2.gen_keys(sk, jax.random.key(9))
     for a, b in zip(jax.tree.leaves(k_full), jax.tree.leaves(k_chunk)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

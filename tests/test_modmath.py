@@ -9,8 +9,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from matrix_fhe_tpu.config import REF_RNS_MODULI, get_params
-from matrix_fhe_tpu.ops import modmath as mm
+from matrix_fhe.config import REF_RNS_MODULI, get_params
+from matrix_fhe.ops import modmath as mm
 
 MODULI = list(REF_RNS_MODULI) + list(get_params("tiny").moduli)
 

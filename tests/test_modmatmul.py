@@ -1,4 +1,4 @@
-"""Exactness tests for the chunked int8 MXU modular matmul against Python
+"""Exactness tests for the chunked int8 modular matmul against Python
 big-int matrix products (the oracle the reference implicitly defines via its
 __int128 per-element loops, HE.cu:716-781)."""
 
@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from matrix_fhe_tpu.config import REF_RNS_MODULI
-from matrix_fhe_tpu.ops import modmatmul as mmm
+from matrix_fhe.config import REF_RNS_MODULI
+from matrix_fhe.ops import modmatmul as mmm
 
 
 def _oracle(table, data, q):
@@ -44,7 +44,7 @@ def test_chunk_decompose_roundtrip(rng):
 
 def test_modmatmul_mixed_small_modulus(rng):
     # tiny moduli (tests use ~30-bit primes) must also be exact
-    from matrix_fhe_tpu.config import get_params
+    from matrix_fhe.config import get_params
     moduli = list(get_params("tiny").moduli)
     k, m, w = 8, 8, 8
     table = np.stack([rng.integers(0, q, size=(w, k), dtype=np.uint64)

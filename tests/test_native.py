@@ -4,10 +4,10 @@ bit-identical (the modular inverse is unique)."""
 import numpy as np
 import pytest
 
-from matrix_fhe_tpu.config import get_params
-from matrix_fhe_tpu.native import tablegen
-from matrix_fhe_tpu.ops.modmath import find_eta, find_psi_4n
-from matrix_fhe_tpu.tables import (cyclotomic_two_primes, lagrange_inverse_mod,
+from matrix_fhe.config import get_params
+from matrix_fhe.native import tablegen
+from matrix_fhe.ops.modmath import find_eta, find_psi_4n
+from matrix_fhe.tables import (cyclotomic_two_primes, lagrange_inverse_mod,
                                    vandermonde_mod)
 
 pytestmark = pytest.mark.skipif(not tablegen.available(),
@@ -62,10 +62,10 @@ def test_native_ref_limb0_speed():
 
 import jax.numpy as jnp
 
-from matrix_fhe_tpu.native import golden
-from matrix_fhe_tpu.config import get_params
-from matrix_fhe_tpu.tables import build_tables
-from matrix_fhe_tpu.models import rng as refrng
+from matrix_fhe.native import golden
+from matrix_fhe.config import get_params
+from matrix_fhe.tables import build_tables
+from matrix_fhe.models import rng as refrng
 
 pytestmark_golden = pytest.mark.skipif(not golden.available(),
                                        reason="no C++ toolchain")
@@ -73,10 +73,10 @@ pytestmark_golden = pytest.mark.skipif(not golden.available(),
 
 @pytest.mark.skipif(not golden.available(), reason="no C++ toolchain")
 def test_golden_polymul_vs_xntt(rng):
-    from matrix_fhe_tpu.ops.ntt import XNTT
+    from matrix_fhe.ops.ntt import XNTT
     p = get_params("small")
     for ring in ("nega", "gl"):
-        xn = XNTT(p, ring=ring, use_pallas=False)
+        xn = XNTT(p, ring=ring)
         a = np.stack([rng.integers(0, q, size=(1, p.n), dtype=np.uint64)
                       for q in p.moduli])
         b = np.stack([rng.integers(0, q, size=(1, p.n), dtype=np.uint64)
@@ -96,8 +96,8 @@ def test_golden_polymul_vs_xntt(rng):
 def test_golden_wcrt_matvec(rng):
     p = get_params("small")
     t = build_tables(p)
-    from matrix_fhe_tpu.ops.wcrt import WTransform
-    wt = WTransform(p, t, use_pallas=False, fast_float=False)
+    from matrix_fhe.ops.wcrt import WTransform
+    wt = WTransform(p, t)
     x = np.stack([rng.integers(0, q, size=(p.phi,), dtype=np.uint64)
                   for q in p.moduli])
     got = np.asarray(wt.forward(jnp.asarray(x[:, :, None, None])))[..., 0, 0]
@@ -122,7 +122,7 @@ def test_golden_rng_streams():
 def test_golden_crt_compose(rng):
     p = get_params("small")
     t = build_tables(p)
-    from matrix_fhe_tpu.ops.crt import CRTComposer
+    from matrix_fhe.ops.crt import CRTComposer
     comp = CRTComposer(t)
     moduli = np.asarray(p.moduli, dtype=np.uint64)
     xs = rng.integers(0, 1 << 60, size=(8,))
@@ -153,9 +153,9 @@ def test_golden_crt_compose(rng):
 def test_golden_gaussian_noise_bit_exact(preset):
     """Box-Muller noise stream: native libm (golden.cpp) vs the XLA f64 path
     (models/rng.gaussian_noise), bit-compared as mod-q integers at small AND
-    ref moduli (HE.cu:581-627 contract; VERDICT r1 item 6)."""
-    from matrix_fhe_tpu.config import get_params
-    from matrix_fhe_tpu.models import rng as refrng
+    ref moduli (HE.cu:581-627 contract)."""
+    from matrix_fhe.config import get_params
+    from matrix_fhe.models import rng as refrng
 
     p = get_params(preset)
     want = np.asarray(refrng.gaussian_noise(p))

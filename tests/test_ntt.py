@@ -10,10 +10,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from matrix_fhe_tpu.config import get_params
-from matrix_fhe_tpu.tables import build_tables
-from matrix_fhe_tpu.ops.ntt import XNTT, RING_GL, RING_NEGACYCLIC, apply_gl_perm
-from matrix_fhe_tpu.ops import modmath as mm
+from matrix_fhe.config import get_params
+from matrix_fhe.tables import build_tables
+from matrix_fhe.ops.ntt import XNTT, RING_GL, RING_NEGACYCLIC, apply_gl_perm
+from matrix_fhe.ops import modmath as mm
 
 
 @pytest.fixture(scope="module", params=["tiny", "small"])

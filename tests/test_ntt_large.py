@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from matrix_fhe_tpu.ops.ntt_large import (FourStepNTT, FourStepPlan,
+from matrix_fhe.ops.ntt_large import (FourStepNTT, FourStepPlan,
                                           generate_primes_1mod)
 
 
@@ -36,7 +36,7 @@ def test_forward_matches_dft_matrix(primes, rng):
     q = primes[0]
     x = rng.integers(0, q, size=(1, 1, n), dtype=np.uint64)
     got = np.asarray(ntt.forward(jnp.asarray(x)))[0, 0]
-    from matrix_fhe_tpu.ops.ntt_large import _find_generator
+    from matrix_fhe.ops.ntt_large import _find_generator
     g = _find_generator(q)
     w = pow(g, (q - 1) // n, q)
     want = [sum(int(x[0, 0, i]) * pow(w, i * k % n, q) for i in range(n)) % q
@@ -82,8 +82,8 @@ def test_prime_generator_width_contract():
     """generate_primes_1mod(bits=k) must return bit-length-EXACTLY-k primes:
     the width drives the int8 digit grid (ceil(bits/7) a side), and the old
     upward search silently returned (k+1)-bit primes — a 6x6 grid where 5x5
-    suffices (docs/PERF.md round 3)."""
-    from matrix_fhe_tpu.ops.ntt_large import generate_primes_1mod
+    suffices."""
+    from matrix_fhe.ops.ntt_large import generate_primes_1mod
     for bits, m in ((35, 1 << 17), (28, 1 << 17), (23, 1 << 11)):
         for q in generate_primes_1mod(4, bits, m):
             assert int(q).bit_length() == bits

@@ -13,9 +13,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from matrix_fhe_tpu.config import get_params
-from matrix_fhe_tpu.models.he import HEContext
-from matrix_fhe_tpu.ops.ntt import RING_GL, RING_NEGACYCLIC
+from matrix_fhe.config import get_params
+from matrix_fhe.models.he import HEContext
+from matrix_fhe.ops.ntt import RING_GL, RING_NEGACYCLIC
 
 
 def _message(p):
@@ -51,7 +51,7 @@ def test_noise_encrypt_decrypt_small_error():
                   for q in p.moduli])
     ct = ctx.encrypt(jnp.asarray(m), sk)
     got = np.asarray(ctx.decrypt_to_eval(ct, sk))
-    from matrix_fhe_tpu.models import rng as refrng
+    from matrix_fhe.models import rng as refrng
     e = refrng.gaussian_noise(p)
     e_eval = np.asarray(ctx.wt.forward(e))
     q = np.array(p.moduli, dtype=np.uint64).reshape(-1, 1, 1, 1)
@@ -72,6 +72,21 @@ def test_full_pipeline_roundtrip(preset):
     # so noise/Delta is proportionally larger
     tol = {"tiny": 0.5, "small": 0.05}[preset]
     assert err < tol, err
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_roundtrip_word_formats(fast):
+    """HEContext.roundtrip on the u64 path (fast_float=False) and on the
+    u32-pair path with cached parity streams (fast_float=True)."""
+    p = get_params("small")
+    ctx = HEContext(p, fast_float=fast)
+    sk = ctx.generate_secret_key()
+    re, im = _message(p)
+    fn, args = ctx.roundtrip_program(jnp.asarray(re), jnp.asarray(im), sk)
+    assert len(args) == (4 if fast else 3)     # streams ride as arguments
+    dr, di = ctx.roundtrip(jnp.asarray(re), jnp.asarray(im), sk)
+    err = np.hypot(np.asarray(dr) - re, np.asarray(di) - im).max()
+    assert err < 0.05, err
 
 
 def test_homomorphic_add():
@@ -143,13 +158,12 @@ def test_fresh_randomness_pipeline():
 
 
 def test_pair_native_roundtrip_matches_u64_path():
-    """The u32-pair fast roundtrip vs the u64-path composition, both through
-    interpret-mode Pallas kernels with fast_float forced on (the TPU
-    configuration, selected via the public HEContext flags)."""
-    from matrix_fhe_tpu.models import rng as refrng
+    """The u32-pair fast roundtrip (fast_float=True, selected via the public
+    HEContext flag) vs the u64-path composition of the same stages."""
+    from matrix_fhe.models import rng as refrng
 
     p = get_params("small")
-    ctx = HEContext(p, use_pallas=True, fast_float=True)
+    ctx = HEContext(p, fast_float=True)
     sk = ctx.generate_secret_key()
     rng = np.random.default_rng(3)
     re = jnp.asarray(rng.uniform(-4, 4, size=(p.phi, p.n, p.n)))
@@ -171,7 +185,7 @@ def test_pair_native_roundtrip_matches_u64_path():
 
 def test_debug_hooks():
     """Moduli-readback + sanity counters (HE.cu:410-422,1204-1222 parity)."""
-    from matrix_fhe_tpu.utils import debug
+    from matrix_fhe.utils import debug
 
     ctx = HEContext(get_params("tiny"))
     assert debug.check_moduli(ctx)
@@ -179,25 +193,3 @@ def test_debug_hooks():
     assert debug.count_nonzero(x) == 3
     hi = jnp.asarray(np.array([[0, 0], [1, 0], [0, 0]], dtype=np.uint64))
     assert debug.count_over_i64(hi) == 1
-
-
-def test_fused_compose_decode_bitwise_equal():
-    """SlicedInvCompose (W-CRT inverse fused with the CRT compose) must
-    produce a bit-identical decode vs the two-pass path (the f32 k-quotient
-    never moves the integer k)."""
-    import os
-
-    p = get_params("small")
-    ctx = HEContext(p, use_pallas=True, fast_float=True)
-    rng = np.random.default_rng(3)
-    re = jnp.asarray(rng.uniform(-4, 4, size=(p.phi, p.n, p.n)))
-    im = jnp.asarray(rng.uniform(-4, 4, size=(p.phi, p.n, p.n)))
-    pr, pi = ctx.batched_encoder.encode_pair(re, im)
-    d1 = ctx.batched_encoder.decode_pair(pr, pi)
-    os.environ["MFHE_FUSED_COMPOSE"] = "0"
-    try:
-        d2 = ctx.batched_encoder.decode_pair(pr, pi)
-    finally:
-        os.environ.pop("MFHE_FUSED_COMPOSE", None)
-    np.testing.assert_array_equal(np.asarray(d1[0]), np.asarray(d2[0]))
-    np.testing.assert_array_equal(np.asarray(d1[1]), np.asarray(d2[1]))

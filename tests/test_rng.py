@@ -6,8 +6,8 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from matrix_fhe_tpu.config import get_params
-from matrix_fhe_tpu.models import rng as r
+from matrix_fhe.config import get_params
+from matrix_fhe.models import rng as r
 
 M64 = (1 << 64) - 1
 

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from matrix_fhe_tpu.config import generate_ntt_primes, get_params
-from matrix_fhe_tpu.ops.rns_ext import BasisExtender
+from matrix_fhe.config import generate_ntt_primes, get_params
+from matrix_fhe.ops.rns_ext import BasisExtender
 
 
 def _primes():

@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from matrix_fhe_tpu.config import get_params
-from matrix_fhe_tpu.models import trace
+from matrix_fhe.config import get_params
+from matrix_fhe.models import trace
 
 
 @pytest.fixture(scope="module")
@@ -84,41 +84,3 @@ def test_trace_semantics_diagonal(setup):
     cr, ci = trace.trace_matmul(jnp.asarray(ar), jnp.asarray(ai),
                                 jnp.asarray(br), jnp.asarray(bi), p)
     assert cr.shape == ar.shape and ci.shape == ai.shape
-
-
-def test_sliced_cgemm_bit_exact_vs_xla():
-    """The fused Mosaic complex-GEMM kernel (ops/pallas_cgemm.py) ==
-    the XLA-composed chunked path, bit-exact, incl. a mixed 45+35-bit
-    limb run (the ref-parameter shape)."""
-    import dataclasses
-    import os
-
-    import jax.numpy as jnp
-
-    from matrix_fhe_tpu.config import generate_ntt_primes, get_params
-    from matrix_fhe_tpu.models import trace as tr
-
-    p0 = get_params("tiny")
-    m45 = (generate_ntt_primes(1, 45, p0.n, p0.p)
-           + generate_ntt_primes(2, 35, p0.n, p0.p))
-    rng = np.random.default_rng(1)
-    for p in (p0, dataclasses.replace(p0, name="tiny45x", moduli=m45)):
-        n, W = p.n, p.phi
-
-        def mk():
-            return jnp.asarray(np.stack(
-                [rng.integers(0, int(q), size=(W, n, n), dtype=np.uint64)
-                 for q in p.moduli]))
-
-        ar, ai, br, bi = mk(), mk(), mk(), mk()
-        os.environ["MFHE_CGEMM"] = "xla"
-        try:
-            want = tr.trace_gemm(ar, ai, br, bi, p)
-            os.environ["MFHE_CGEMM"] = "sliced"
-            got = tr.trace_gemm(ar, ai, br, bi, p)
-        finally:
-            os.environ.pop("MFHE_CGEMM", None)
-        np.testing.assert_array_equal(np.asarray(want[0]),
-                                      np.asarray(got[0]))
-        np.testing.assert_array_equal(np.asarray(want[1]),
-                                      np.asarray(got[1]))

@@ -6,9 +6,9 @@ def test_noise_magnitude_utility():
     import numpy as np
     import jax.numpy as jnp
 
-    from matrix_fhe_tpu.config import get_params
-    from matrix_fhe_tpu.models.he import HEContext
-    from matrix_fhe_tpu.utils import debug as dbg
+    from matrix_fhe.config import get_params
+    from matrix_fhe.models.he import HEContext
+    from matrix_fhe.utils import debug as dbg
 
     p = get_params("tiny")
     rng = np.random.default_rng(5)

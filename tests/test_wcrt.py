@@ -11,10 +11,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from matrix_fhe_tpu.config import get_params
-from matrix_fhe_tpu.tables import build_tables
-from matrix_fhe_tpu.ops.wcrt import WTransform
-from matrix_fhe_tpu.ops.crt import centered_i64_to_rns
+from matrix_fhe.config import get_params
+from matrix_fhe.tables import build_tables
+from matrix_fhe.ops.wcrt import WTransform
+from matrix_fhe.ops.crt import centered_i64_to_rns
 
 
 @pytest.fixture(scope="module", params=["tiny", "small"])
